@@ -2,7 +2,7 @@
 programmable-pipeline features).
 
 Shaders are plain functions over arrays — the same function runs under
-NumPy in the golden reference and under jit on TPU.  This one renders
+NumPy in the golden reference and under jit on the device.  This one renders
 UV-space stripes modulated by the world normal, then applies a USER
 post-FX stage (a vignette) slotted into params.post_fx — the
 post-pipeline analog of the shader ABI, traced into the same jitted

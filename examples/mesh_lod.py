@@ -49,8 +49,7 @@ def main(out="/tmp/mesh_lod.png"):
     sc = scene.build_scene_buffers(insts)
 
     # Active-slot compaction: without it the binning stage would pay for
-    # every packed LOD level; the static bound keeps the frame exact
-    # (BENCHMARKS.md "Mesh LOD + active-triangle compaction").
+    # every packed LOD level; the static bound keeps the frame exact.
     cap = lod.suggested_active_cap(sc)
     eng = Engine(sc, RenderParams(width=W, height=H, active_cap=cap))
     u = dict(eng.uniforms)

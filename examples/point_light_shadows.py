@@ -4,7 +4,7 @@ Six depth-only passes from the light position (one per cube face) build a
 (6, S, S) shadow map inside the same jitted frame; the fragment shader
 picks the face by the dominant axis of (fragment - light) and compares
 depth (ops/shadows.py).  The reference imports point lights from scenes
-but never consumes them (Light.cs:19-32) — this is the TPU framework's
+but never consumes them (Light.cs:19-32) — this is the framework's
 extension on top of that data.
 
     python examples/point_light_shadows.py

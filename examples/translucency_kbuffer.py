@@ -4,9 +4,9 @@ Winner-only deferred shading is exact for opaque scenes but wrong when a
 discarded fragment should reveal geometry behind it, or when translucent
 layers must blend in submission order.  RenderParams(kbuffer=K) keeps the
 K best fragments per pixel and replays the reference's sequential
-shade-blend over them (Rasterizer.cs:509-523).  On TPU this routes
-through the depth-peeled Pallas path (~3× the opaque frame cost at K=4,
-BENCHMARKS.md); elsewhere through the XLA K-slot fold.
+shade-blend over them (Rasterizer.cs:509-523).  On a GPU this routes
+through the depth-peeled tile kernel (ops/tile_fold.py); elsewhere
+through the XLA K-slot fold.
 
     python examples/translucency_kbuffer.py
 """

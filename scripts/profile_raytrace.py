@@ -8,7 +8,7 @@ Usage:  python scripts/profile_raytrace.py [--width 640] [--height 400]
 
 cluster_cap here is the pair-table budget per bundle on AVERAGE
 (pair_cap = cap × n_bundles — see render_frame_raytraced); the printed
-live-pair count is what it must cover.  Timing uses the Mosaic-safe
+live-pair count is what it must cover.  Timing uses the
 pipelined methodology (utils.profiling.timed_frames + hard_sync with a
 watchdog), not block_until_ready.
 """
@@ -18,6 +18,10 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+from softwarerenderer_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable_compile_cache()
 
 import jax
 import jax.numpy as jnp
@@ -45,7 +49,7 @@ def main():
                          "compiles for minutes at large resolutions)")
     args = ap.parse_args()
 
-    import bench
+    from softwarerenderer_tpu.models import workloads as wl
     from softwarerenderer_tpu import RenderParams
     from softwarerenderer_tpu.engine.renderer import default_frame_uniforms
     from softwarerenderer_tpu.ops import rt_accel, sky as sky_mod
@@ -56,10 +60,10 @@ def main():
     from softwarerenderer_tpu.utils.profiling import timed_frames
 
     W, H = args.width, args.height
-    scene = jax.device_put(bench.build_scene())
+    scene = jax.device_put(wl.stand_in_scene())
     n_tri = int(scene["indices"].shape[0])
     params = RenderParams(width=W, height=H)
-    u = bench.camera_uniforms(default_frame_uniforms(W, H))
+    u = wl.camera_uniforms(default_frame_uniforms(W, H))
     shadows = not args.no_shadows
     if args.soft:
         u["rt_light_radius"] = np.float32(0.25)
@@ -85,7 +89,7 @@ def main():
     cap = args.cap or max(2, int(np.ceil(n_pairs / B * 1.3)))
     print(f"cluster_cap = {cap} (pair table {cap * B})")
 
-    # --- timed frames (Mosaic-safe) -----------------------------------
+    # --- timed frames (pipelined) -------------------------------------
     def run(label, **kw):
         fn = jax.jit(lambda s, uu: render_frame_raytraced(
             s, uu, params, shadows=shadows,

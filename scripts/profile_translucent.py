@@ -1,12 +1,6 @@
-"""Translucent-CONTENT throughput (VERDICT r3 #5): dust2 plus a band of
-glass panes, K-buffer depth peeling at 1080p.
-
-Round 3's opaque short-circuit made K=4 track content (opaque frame =
-15.9 ms), but a frame that actually contains translucency re-ran every
-peel pass over the WHOLE frame.  Round 4's tile-granular eligibility
-(ops/pallas_tile._kernel run_folds) makes passes 2..K fold only the
-tiles whose prev maps admit anything — sparse glass/particles pay for
-their own tiles, not the screen.
+"""Translucent-content throughput: the stand-in scene plus a band of glass
+panes, K-buffer frames at 1080p (tile-kernel depth peel where the route
+picks it, else the XLA K-slot fold).
 
 Usage: python scripts/profile_translucent.py [--frames 20] [--panes 6]
            [--kbuffer 4] [--opaque-baseline]
@@ -18,7 +12,10 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import numpy as np
+from softwarerenderer_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable_compile_cache()
+
 
 
 def main():
@@ -34,34 +31,13 @@ def main():
 
     import jax
 
-    import bench
     from softwarerenderer_tpu import RenderParams
     from softwarerenderer_tpu.engine import Engine
-    from softwarerenderer_tpu.io_host import model_loader
-    from softwarerenderer_tpu.models import primitives, scene as scene_mod
-    from softwarerenderer_tpu.ops import texture as tex_ops
-    from softwarerenderer_tpu.utils import mathlib as ml
+    from softwarerenderer_tpu.models import workloads as wl
     from softwarerenderer_tpu.utils.profiling import timed_frames
 
     def build(alpha):
-        fallback = np.asarray(tex_ops.checkerboard(
-            64, 8, (0.8, 0.75, 0.6, 1.0), (0.55, 0.5, 0.4, 1.0))["data"])
-        model = model_loader.load_model(bench.DUST2)
-        insts = model_loader.model_instances(model,
-                                             fallback_texture=fallback)
-        rng = np.random.default_rng(3)
-        for i in range(args.panes):
-            pane = dict(primitives.plane(1.6))
-            col = np.ones((pane["position"].shape[0], 4), np.float32)
-            col[:, 3] = alpha
-            col[:, :3] = rng.uniform(0.4, 1.0, 3)
-            pane["color"] = col
-            m = (ml.matrix_from_yaw_pitch_roll(0.0, np.pi / 2, 0.0)
-                 @ ml.translation([-3.0 + 1.4 * i, 2.0,
-                                   2.0 + 0.4 * (i % 3)])).astype(
-                np.float32)
-            insts.append(scene_mod.MeshInstance(pane, m))
-        return scene_mod.build_scene_buffers(insts)
+        return wl.translucent_scene(alpha, panes=args.panes)
 
     params = RenderParams(width=args.width, height=args.height,
                           kbuffer=args.kbuffer, cull_mode=0)
@@ -70,13 +46,13 @@ def main():
         scene = jax.device_put(build(alpha))
         eng = Engine(scene, params)
         spf = timed_frames(
-            lambda i: eng.render(bench.camera_uniforms(eng.uniforms, i)),
+            lambda i: eng.render(wl.camera_uniforms(eng.uniforms, i)),
             args.frames, timeout_s=600)
         print(f"{label:34s} {spf * 1e3:7.2f} ms/frame "
               f"({1.0 / spf:6.1f} fps)", flush=True)
         return spf
 
-    print(f"dust2 + {args.panes} panes, K={args.kbuffer}, "
+    print(f"stand-in + {args.panes} panes, K={args.kbuffer}, "
           f"{args.width}x{args.height}, {args.frames}f")
     run("glass panes (alpha 0.5)", 0.5)
     if args.opaque_baseline:

@@ -1,4 +1,4 @@
-"""softwarerenderer_tpu — a TPU-native rendering + game-simulation framework.
+"""softwarerenderer_tpu — a JAX rendering + game-simulation framework.
 
 A brand-new JAX/XLA/Pallas re-design of the capabilities of the reference C#
 project OCSYT/SoftwareRenderer (see SURVEY.md): a programmable software

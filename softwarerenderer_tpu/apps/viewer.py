@@ -258,12 +258,12 @@ def main(argv=None):
     ap.add_argument("--rt-cap", type=int, nargs="+", default=[24],
                     metavar="N",
                     help="ray-traced mode ('g'): bundle-culling cluster "
-                         "budget (the r4 Pallas sweep kernel on TPU, the "
-                         "XLA pair table elsewhere; exact either way).  "
-                         "0 = brute force (ground-truth path).  Default "
-                         "24 makes the toggle interactive (BENCHMARKS: "
-                         "dust2 + hard shadows 30-42 fps)")
+                         "budget (the XLA pair table; exact for any "
+                         "budget).  0 = brute force (ground-truth path).  "
+                         "Default 24.")
     args = ap.parse_args(argv)
+    from softwarerenderer_tpu.utils import compile_cache
+    compile_cache.enable_compile_cache()
     rt_cap = tuple(args.rt_cap)
     if rt_cap == (0,):
         rt_cap = 0

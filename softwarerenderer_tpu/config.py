@@ -100,12 +100,13 @@ class RenderParams:
     # Visibility strategy: tile-binned (work ∝ triangle-tile overlap) vs
     # brute force (every triangle × every pixel; the correctness slice).
     binned: bool = True
-    # Tile/chunk defaults from the round-2 sweep on TPU v5e @1080p dust2
-    # (BENCHMARKS.md): 32x128 tiles, 16-tile groups, 32-triangle chunks,
-    # span_cap 8 (smaller pair table; the Pallas kernel keeps globals
-    # resident in VMEM so the bigger global list is free).
+    # Tile defaults from a sweep on an NVIDIA H100 (1080p stand-in scene,
+    # 4K config 5; CHANGES.md): 32x128 was the fastest tile of those tried
+    # for both the tile kernel and the XLA fused path.  The binning tile
+    # is the kernel's tile, so both must be powers of two for the kernel
+    # route.  tile_group and chunk serve the XLA paths only.
     tile_h: int = 32          # screen tile size for binning
-    tile_w: int = 128         # last dim 128 = TPU lane width
+    tile_w: int = 128
     span_cap: int = 8         # bbox tile-span above which a tri goes global
     tile_group: int = 16      # tiles processed per sequential step
     chunk: int = 32           # triangles folded per reduction step
@@ -135,18 +136,16 @@ class RenderParams:
     # Capacity counters: ALSO return a stats dict with "live_pairs" (the
     # frame's live (tile, triangle) pair count — measure a workload with
     # this before choosing pair_cap), "live_globals" (the frame's
-    # global-triangle count — measure before choosing global_cap),
-    # "active_cap_overflow" (with active_cap: valid slots the cap
-    # dropped; 0 = exact), "pair_cap_overflow" (with pair_cap: live
-    # pairs dropped; 0 = exact) and "global_cap_overflow" (with
-    # global_cap: globals dropped; 0 = exact).  Changes render_frame's
-    # return to (color, depth, stats);
+    # global-triangle count), "active_cap_overflow" (with active_cap:
+    # valid slots the cap dropped; 0 = exact) and "pair_cap_overflow"
+    # (with pair_cap: live pairs dropped; 0 = exact).  Changes
+    # render_frame's return to (color, depth, stats);
     # incompatible with ssaa/post-fx recursion (ValueError); merges into
     # the kbuffer_stats dict when both are set.
     active_cap_stats: bool = False
     # Pair-table truncation (ops/binning.bin_triangles): stable-compact
     # the LIVE (tile, triangle) pairs to this static prefix BEFORE the
-    # pair sort, so the sort and the Pallas stream gathers scale with
+    # pair sort, so the sort and every per-tile segment walk scale with
     # actual triangle-tile overlap instead of the padded N·span_cap
     # table (which dominates large compacted scenes: the pair table is
     # ~90% sentinel tail at profile_lod's tight active_cap).  Exact
@@ -155,25 +154,6 @@ class RenderParams:
     # active_cap_stats' "pair_cap_overflow" counter.  0 = off (full
     # N·span_cap table).
     pair_cap: int = 0
-    # Global-stream truncation (ops/pallas_tile): keep only the first
-    # `global_cap` entries of the binning order stream — the global
-    # (span > span_cap) triangles lead it in submission order, so the
-    # stream's setup/payload gathers scale with this cap instead of the
-    # full slot count.  Exact whenever the frame's global-triangle count
-    # fits (typical scenes have tens: dust2 @1080p has 49); overflow
-    # drops the last-submitted globals — guard with active_cap_stats'
-    # "global_cap_overflow" counter.  Rounded up to the kernel's
-    # VMEM-resident minimum (256).  0 = off (full-slot stream).
-    global_cap: int = 0
-    # Lazy attr compaction (ops/geometry.compact_triangles lazy_attrs):
-    # with active_cap on the Pallas route, leave the wide per-triangle
-    # attr payload UN-gathered at full slot count and fold the
-    # compaction permutation into the stream gathers instead — payload
-    # gather cost then scales with live pairs (pair_cap) + global_cap,
-    # not with active_cap × payload width.  Bit-exact (the composed
-    # gather reproduces the eager rows); False forces the eager gather
-    # everywhere (debug / A-B).
-    lazy_compaction: bool = True
     # Mip-mapped texture sampling (beyond the reference):
     # per-triangle LOD from the uv-area/screen-area ratio selects a
     # box-filtered mip from the atlas chain.  False = off (mip 0, the
@@ -193,7 +173,8 @@ class RenderParams:
     # render_frame's return to (color, depth, stats); incompatible with
     # ssaa/post-fx recursion (ValueError).
     kbuffer_stats: bool = False
-    # Opaque short-circuit for the depth-peeled Pallas K-buffer: stop
+    # Opaque short-circuit for the depth-peeled K-buffer (tile kernel
+    # route, ops/tile_fold.render_kbuffer_peel): stop
     # peeling at pixels whose winner is semantically opaque (pack-time
     # per-triangle flags, engine.opaque_tri_flags) AND visibly shaded
     # (alpha > 0) — under ALPHA/NONE blending a worse-ranked fragment
@@ -205,38 +186,34 @@ class RenderParams:
     # (scripts/measure_kbuffer_coverage.py) or forcing strict
     # bit-identity to the XLA K-slot fold.
     kbuffer_short_circuit: bool = True
-    # Row-compacted layer shading for peel passes k >= 1 (the Pallas
-    # K-buffer): when the pass's live pixels span at most this fraction
-    # of the framebuffer's ROWS, gather those rows, shade the compacted
-    # (rows, W) block, and scatter back — sparse translucency then pays
-    # shading for its own rows instead of the full frame.  Row (not
-    # pixel) granularity because TPU row gathers are bandwidth-priced
-    # while per-pixel gathers charge per element (BENCHMARKS.md gather
-    # model).  Bit-exact: the shader ABI is per-pixel, and pixels whose
-    # winner map says "none" are never read by the replay.  0 disables.
+    # Compacted layer shading for peel passes k >= 1 (the kernel
+    # K-buffer): when the pass's live row segments are at most this
+    # fraction of the framebuffer's segments, gather them, shade the
+    # compacted block, and scatter back — sparse translucency then pays
+    # shading for its own segments instead of the full frame.
+    # Bit-exact: the shader ABI is per-pixel, and pixels whose winner map
+    # says "none" are never read by the replay.  0 disables.
     kbuffer_compact_rows: float = 0.5
-    # APPROXIMATE opt-in mode (r5, VERDICT r4 #10): shade every
-    # shade_rate-th ROW over the full-resolution winner maps and
-    # replicate the shaded color down each row block — the kernel's
-    # visibility fold runs at full res (anchor rows stay identical to
-    # full-rate in depth, and in color to 1 ulp of cross-compilation
-    # fusion), while non-anchor rows follow their anchor's shaded
-    # write/discard decision (a thin silhouette band may differ);
-    # shading cost (texel gathers + shader math) drops ~shade_rate×.
-    # Rows, not 2x2 blocks: column-strided subsampling crosses TPU
-    # lanes and costs more than it saves (measured — BENCHMARKS.md).
-    # NOT a parity mode: it has its own golden contract
+    # APPROXIMATE opt-in mode: shade every shade_rate-th ROW over the
+    # full-resolution winner maps and replicate the shaded color down
+    # each row block — the kernel's visibility fold runs at full res
+    # (anchor rows stay identical to full-rate in depth, and in color to
+    # 1 ulp of cross-compilation fusion), while non-anchor rows follow
+    # their anchor's shaded write/discard decision (a thin silhouette
+    # band may differ); shading cost (texel gathers + shader math) drops
+    # ~shade_rate×.  NOT a parity mode: it has its own contract
     # (tests/test_pallas_raster.py shade-rate case) and never engages
-    # unless explicitly set.  Pallas opaque route only (kbuffer > 1 or
-    # other routes raise); the frame height must divide by shade_rate.
+    # unless explicitly set.  Tile-kernel opaque route only (kbuffer > 1
+    # or other routes raise); the frame height must divide by
+    # shade_rate.
     shade_rate: int = 1
-    # Run fold+resolve+interp as one Pallas tile kernel (ops/pallas_tile)
-    # with shading as a single full-frame pass — the fastest path, default
-    # ON.  Engages only on the TPU backend with LESS_EQUAL depth; every
-    # other configuration falls back to the XLA fused path automatically.
+    # Fold visibility with the Triton tile kernel (ops/tile_fold) and
+    # shade in one gather pass.  Engages where tile_fold.fold_route says:
+    # on the GPU, for deferred binned LESS_EQUAL frames with power-of-two
+    # tiles; every other configuration runs the XLA paths.
     use_pallas: bool = True
-    # Run the Pallas routes in interpret mode on any backend (tests /
-    # debugging: the kernel code path without Mosaic hardware).  The
+    # Run the tile kernel in Pallas interpret mode on any backend (tests:
+    # the kernel code path without a GPU).  Never chosen implicitly.  The
     # interpret compilation can differ from the XLA fused path by an FMA
     # ulp on borderline edge pixels — compare interpret against
     # interpret, not against fused, for exact asserts.

@@ -6,7 +6,7 @@ its only "texture source" is Assimp-loaded image files,
 into a texture-atlas slot, then render the main view with that slot
 textured onto geometry — a security monitor, a mirror, a portal.
 
-TPU-first design: the whole multi-pass frame is ONE functional program.
+Design: the whole multi-pass frame is ONE functional program.
 The packed atlas (models/scene.pack_atlas) is just an array in the scene
 pytree, so "writing a render target" is a `lax.dynamic_update_slice` into
 the slot's sub-rectangle — static update shape, traced offsets, no host

@@ -64,7 +64,7 @@ class Model:
     def advance_animation(self, delta_time: float, fps: int = 30) -> int:
         """PlayAnimation's fixed-FPS timing, returning the current frame
         index — feed it to the device as uniforms["anim_frame"] (the
-        TPU-native path: frame stacks live on device, the index is a
+        device path: frame stacks live on device, the index is a
         traced scalar, so stepping never re-uploads or recompiles)."""
         self.play_animation(lambda _m: None, delta_time, fps)
         return self._frame_index

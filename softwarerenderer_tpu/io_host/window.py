@@ -108,7 +108,7 @@ class PygameWindow(WindowBase):
     """SDL-backed window + input (the MainWindow role)."""
 
     def __init__(self, width: int, height: int, render_scale: float = 0.25,
-                 title: str = "Software Renderer TPU - Dust2"):
+                 title: str = "Software Renderer - Dust2"):
         super().__init__(width, height, render_scale)
         import pygame
         self._pg = pygame
@@ -246,7 +246,7 @@ class PygameWindow(WindowBase):
 def make_window(width: int, height: int, render_scale: float = 0.25,
                 headless: Optional[bool] = None,
                 out_path: Optional[str] = None,
-                title: str = "Software Renderer TPU - Dust2") -> WindowBase:
+                title: str = "Software Renderer - Dust2") -> WindowBase:
     """Pick a backend: headless when no display or explicitly requested."""
     if headless is None:
         headless = not os.environ.get("DISPLAY") \

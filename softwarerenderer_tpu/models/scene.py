@@ -1,7 +1,7 @@
 """Scene data model: cameras, materials, lights, meshes, packed scene buffers.
 
 Mirrors the reference's scene types (ModelLoader.cs:42-67 Mesh/Model,
-Material.cs, Light.cs, Camera.cs) as host-side dataclasses plus a TPU-first
+Material.cs, Light.cs, Camera.cs) as host-side dataclasses plus a device
 packing step: instead of per-mesh draw calls under Parallel.ForEach
 (Renderer.cs:444-465), all meshes are concatenated into one device-resident
 triangle soup with per-vertex mesh ids, per-mesh transforms and a packed
@@ -587,8 +587,7 @@ def build_scene_buffers(instances: List[MeshInstance]) -> Dict[str, np.ndarray]:
         # First triangle slot of each mesh's contiguous segment — lets
         # per-mesh bool/int values broadcast to tri granularity by
         # delta-scatter + cumsum instead of a per-element gather
-        # (culling.segment_broadcast: jnp.take over 584k ids measured
-        # ~5 ms on v5e, the cumsum form ~2 ms).  Guarded on sortedness;
+        # (culling.segment_broadcast).  Guarded on sortedness;
         # consumers treat absence as "use take".  NOTE: valid only at
         # full triangle-array size — parallel/sharding.py pops it for
         # tri-sharded slices.
@@ -598,9 +597,7 @@ def build_scene_buffers(instances: List[MeshInstance]) -> Dict[str, np.ndarray]:
     if vmi.size == 0 or (np.diff(vmi) >= 0).all():
         # Same contiguity fact at VERTEX granularity: lets the per-vertex
         # model-matrix fan-out run as the exact bitcast delta-cumsum
-        # (culling.segment_broadcast_bits) instead of a (V, 4, 4) take —
-        # the dominant vertex-stage cost at crowd scale (~5 ms for 181k
-        # vertices on v5e, BENCHMARKS.md).
+        # (culling.segment_broadcast_bits) instead of a (V, 4, 4) take.
         out["vert_seg_starts"] = np.searchsorted(
             vmi, np.arange(len(matrices))).astype(np.int32)
     if any(mesh_lod_px):

@@ -2,7 +2,7 @@
 
 The reference rasterizes each triangle over the 16×16-px tiles its bbox
 touches, serializing tile access with a mutex matrix
-(/root/reference/Rasterizer.cs:449-539, SURVEY.md §2.2 P2).  The TPU-native
+(/root/reference/Rasterizer.cs:449-539, SURVEY.md §2.2 P2).  The lock-free
 equivalent is sort-middle binning (SURVEY.md §7 step 4):
 
   1. every valid triangle emits (tile_id, tri_id) pairs for the screen
@@ -37,6 +37,11 @@ from softwarerenderer_tpu.config import DepthTest, RenderParams
 from softwarerenderer_tpu.ops.raster import DEPTH_CLEAR, NO_TRI, _REDUCE_RULES
 
 F32 = jnp.float32
+# Precision of the one-hot payload resolve.  The payload carries screen
+# vertices, varyings and integer atlas offsets, so the product must be
+# exact: on a GPU an unpinned float32 product may run in TF32, which keeps
+# about three decimal digits (and integers only up to 2048).
+RESOLVE_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def _cdiv(a, b):
@@ -83,8 +88,8 @@ def bin_triangles(tris: Dict, params: RenderParams, tile_h: int, tile_w: int,
     # Stable partition: global triangle ids first, in submission order.
     # Built as a cumsum + scatter permutation (target of slot i = its
     # running count within its class) — equivalent to the stable argsort
-    # it replaces (scripts/profile_compaction.py: both sub-0.04 ms/M
-    # slots on v5e; the scatter avoids the sort's log²-pass scaling).
+    # it replaces (scripts/profile_compaction.py asserts it); the scatter
+    # avoids the sort's log²-pass scaling).
     n_global = jnp.sum(is_global.astype(jnp.int32))
     gi = is_global.astype(jnp.int32)
     posg = jnp.cumsum(gi) - 1
@@ -210,8 +215,8 @@ def global_count(tris: Dict, params: RenderParams,
                  tile_h: int | None = None, tile_w: int | None = None,
                  span_cap: int | None = None, row_offset=0):
     """Traced count of GLOBAL (span > span_cap) triangles this frame —
-    the quantity params.global_cap truncates.  Measure a workload with
-    active_cap_stats (stats["live_globals"]) before choosing a cap."""
+    the list every tile walks before its own segment; reported as
+    stats["live_globals"] by active_cap_stats."""
     span, valid = _tile_spans(tris, params, tile_h, tile_w, row_offset)
     span_cap = params.span_cap if span_cap is None else span_cap
     return jnp.sum((valid & (span > span_cap)).astype(jnp.int32))
@@ -236,8 +241,8 @@ def visibility_binned(tris: Dict, params: RenderParams, chunk: int = 32,
 
     Drop-in replacement for raster.visibility_brute_force (same contract)
     with work proportional to triangle-tile overlap instead of T × H × W.
-    tile_group adjacent tiles are processed per sequential step so the
-    (group, chunk, tile_h·tile_w) working set stays VMEM-sized.
+    tile_group adjacent tiles are processed per sequential step, which
+    bounds the (group, chunk, tile_h·tile_w) working set.
 
     tile_row_map (traced (params.height // tile_h,) i32, with full_height):
     this call owns an ARBITRARY set of GLOBAL tile rows instead of the
@@ -494,7 +499,7 @@ def render_binned_fused(tris: Dict, fragment_shader, uniforms: Dict,
     stage: ~60 gathered floats × 2M pixels) are replaced by a second
     streaming pass over each tile's triangle bins that resolves the
     winner's packed payload with ONE-HOT MATMULS — (tpx, C) match matrix ×
-    (C, 3·K) chunk payload on the MXU — so triangle data is only ever read
+    (C, 3·K) chunk payload — so triangle data is only ever read
     in contiguous chunk order and per-pixel attributes never round-trip
     through HBM.
     """
@@ -575,9 +580,6 @@ def render_binned_fused(tris: Dict, fragment_shader, uniforms: Dict,
     order = bins["order"]
     n_global = bins["n_global"]
     c_off = jnp.arange(chunk, dtype=jnp.int32)
-    # (Occupancy-bucketed tile ordering was tried and reverted: scatter
-    # overhead ate the waste savings, and the (G, C, tpx) VMEM working set —
-    # not per-group waste — is what limits tile_group. See BENCHMARKS.md.)
     tile_ids_all = jnp.arange(ntiles_pad, dtype=jnp.int32)
     px_in_tile = (jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 1)
                   .reshape(tpx))
@@ -690,6 +692,7 @@ def render_binned_fused(tris: Dict, fragment_shader, uniforms: Dict,
                           ).astype(F32)                  # (G, tpx, C)
                 return acc + jax.lax.dot_general(
                     onehot, pl, (((2,), (1,)), ((0,), (0,))),
+                    precision=RESOLVE_PRECISION,
                     preferred_element_type=jnp.float32)
             return body
         acc0 = jnp.zeros((tile_group, tpx, 3 * kp), F32)
@@ -816,7 +819,7 @@ def shade_binned_fused(tris: Dict, best_depth, best_tri, fragment_shader,
                        tile_map=None):
     """Deferred shading of a precomputed winner map WITHOUT per-pixel
     gathers: stream each tile's bins a second time and resolve the
-    winner's packed payload with one-hot matmuls on the MXU, then
+    winner's packed payload with one-hot matmuls, then
     interpolate + shade in the same per-tile-group loop — the fused
     path's pass B applied to an external (best_depth, best_tri).
 
@@ -975,6 +978,7 @@ def shade_binned_fused(tris: Dict, best_depth, best_tri, fragment_shader,
                           & ok[:, None, :]).astype(F32)  # (G, tpx, C)
                 return acc + jax.lax.dot_general(
                     onehot, pl, (((2,), (1,)), ((0,), (0,))),
+                    precision=RESOLVE_PRECISION,
                     preferred_element_type=jnp.float32)
             return body
         acc0 = jnp.zeros((tile_group, tpx, 3 * kp), F32)

@@ -2,7 +2,7 @@
 effects): bright-pass + separable dilated box blur + additive
 composite, all inside the same jitted program.
 
-TPU-first like ops/ssao.py: the blur is built from static pixel SHIFTS
+Like ops/ssao.py, the blur is built from static pixel SHIFTS
 (edge-padded slices — zero gathers); three separable [1, 2, 1]/4 passes
 at dilations 1, 2, 4 approximate a wide Gaussian for the cost of a few
 fused elementwise ops per pixel.

@@ -61,7 +61,8 @@ def spheres_in_frustum(centers, radii, model_matrices, view_projection,
 
     planes = frustum_planes(view_projection, xp=xp)            # (6, 4)
     # distance(center) = n·c + d for every (mesh, plane) pair
-    dist = (world_center @ planes[:, :3].T) + planes[None, :, 3]
+    dist = ml.matmul(world_center, planes[:, :3].T, xp=xp) \
+        + planes[None, :, 3]
     return xp.all(dist > -world_radius[:, None], axis=-1)
 
 
@@ -69,13 +70,11 @@ def segment_broadcast(values, seg_starts, n: int, element_ids=None, xp=np):
     """Expand per-mesh `values` (M,) to per-element (n,) over CONTIGUOUS
     segments — element i belongs to the last segment whose start <= i.
 
-    The TPU-friendly form of `xp.take(values, element_ids)` for sorted
+    A gather-free form of `xp.take(values, element_ids)` for sorted
     `element_ids` (tri_mesh_id / vert_mesh_id, models/scene.py): scatter
     first-order deltas at the segment starts, one integer cumsum
-    propagates them across each segment.  XLA lowers big takes to serial
-    per-element gathers (~5 ms for 584k ids on v5e, the same trap as the
-    clip-table take_along_axis, BENCHMARKS.md); the scatter+cumsum form
-    measures ~2 ms and is EXACT for bool/int values (integer arithmetic
+    propagates them across each segment.  The scatter+cumsum form is
+    EXACT for bool/int values (integer arithmetic
     throughout — float values would accumulate rounding, so they are
     routed to take).
 
@@ -111,9 +110,7 @@ def segment_broadcast_bits(values, seg_starts, n: int, element_ids=None,
     bitwise regardless of overflow), and bitcast back.  The result is
     bitwise identical to ``xp.take(values, element_ids, axis=0)`` for
     sorted ``element_ids`` — this is how per-vertex model matrices reach
-    the vertex shader without the ~5 ms per-element gather XLA emits for
-    a (181k, 4, 4) take at crowd scale (BENCHMARKS.md; the same trap as
-    the clip-table take_along_axis).
+    the vertex shader without a (V, 4, 4) per-element gather.
 
     values: (M, ...) with a 4-byte dtype.  Returns (n, ...).  Empty
     segments collapse correctly (coincident starts sum their wrapping

@@ -2,11 +2,8 @@
 has no AA at all; `RenderParams.ssaa` remains the exact supersampled
 quality mode).
 
-TPU-first, gather-free: classic FXAA walks each edge with per-pixel
-DYNAMIC sample offsets — on TPU that lowers to full-frame gathers,
-which are element-count-bound (~2.5 ns/element, BENCHMARKS.md gather
-model: ~5 ms/frame at 1080p — more than the whole shading pass).  This
-implementation keeps FXAA's detection + blend model but restricts
+Gather-free: classic FXAA walks each edge with per-pixel DYNAMIC sample
+offsets, which lower to full-frame gathers.  This implementation keeps FXAA's detection + blend model but restricts
 sampling to static pixel SHIFTS (edge-padded slices, like ops/bloom.py
 and ops/ssao.py), so the whole pass is a handful of fused elementwise
 ops:

@@ -1,6 +1,6 @@
 """Device geometry pipeline: vertex shading → clip → viewport/cull setup.
 
-TPU-first re-design of the reference's per-triangle geometry work
+Array re-design of the reference's per-triangle geometry work
 (Rasterizer.RenderMesh/ClipTriangleAgainstNearPlane/DrawTriangle,
 /root/reference/Rasterizer.cs:163-399).  Where the reference runs a
 `Parallel.For` over triangles and shades 3 vertices at a time (SURVEY.md
@@ -62,11 +62,9 @@ def _select_rows(arr: jnp.ndarray, sel: jnp.ndarray, n: int) -> jnp.ndarray:
     """Per-row candidate select: arr (T, n[, K]) picked by sel (T, S) →
     (T, S[, K]), as a branchless where-chain.
 
-    Replaces jnp.take_along_axis on the clip tables: XLA lowers that to a
-    serial per-element gather on TPU — measured 25-28 ms PER CALL at the
-    584k-triangle 4K crowd (the whole clip stage's cost, four calls =
-    ~100 ms/frame; see BENCHMARKS.md capacity-caps section) — while the
-    n-way select chain fuses into sub-ms elementwise ops.  Bit-exact:
+    Replaces jnp.take_along_axis on the clip tables: the n-way select
+    chain fuses into elementwise ops instead of a per-element gather.
+    Bit-exact:
     the same candidate values are selected."""
     a = arr[:, :, None] if arr.ndim == 2 else arr
     out = jnp.broadcast_to(a[:, 0:1], (a.shape[0], sel.shape[1],
@@ -160,8 +158,8 @@ def clip_triangles(attrs: Dict[str, jnp.ndarray], near_clip, *,
                   jnp.clip(t_raw, 0.0, 1.0))  # (T, 3)
 
     # Constant-table lookups as where-chains over the 8 rows (same
-    # rationale as _select_rows: gathers with tiny tables still lower to
-    # serial per-element gathers on TPU).
+    # rationale as _select_rows: no per-element gather from a tiny
+    # table).
     table = jnp.broadcast_to(jnp.asarray(_CLIP_TABLE[0]),
                              (case.shape[0], 4))            # (T, 4)
     count = jnp.full_like(case, _CLIP_COUNT[0])             # (T,)
@@ -289,8 +287,7 @@ def _edge_function(ax, ay, bx, by, cx, cy):
 
 
 def compact_triangles(tris: Dict, cap: int,
-                      per_tri_extra: Dict | None = None,
-                      lazy_attrs: bool = False):
+                      per_tri_extra: Dict | None = None):
     """Stable-partition the VALID triangle slots into a static `cap`-slot
     prefix — every downstream stage (pair-table sort, stream gathers,
     payload packing) then scales with the ACTIVE triangle count instead of
@@ -299,9 +296,7 @@ def compact_triangles(tris: Dict, cap: int,
     Scenes that pack alternative geometry the frame masks off — every
     mesh-LOD level (ops/lod.py), app-hidden meshes — otherwise pay full
     binning cost for slots that can never win: the pair sort runs over
-    N·span_cap slots and the Pallas stream gathers copy each slot's
-    setup+payload rows (measured: a 4K LOD crowd was ~1.8× SLOWER than
-    its LOD-less twin, scripts/profile_lod.py).
+    N·span_cap slots (scripts/profile_lod.py measures the effect).
 
     Exactness: the permutation keeps valid slots in submission order, and
     every reduction downstream is the lexicographic (depth, submission
@@ -315,33 +310,15 @@ def compact_triangles(tris: Dict, cap: int,
 
     The permutation is built with a cumsum + scatter (position of valid
     slot i = its running count; out-of-cap targets drop) instead of the
-    round-3-initial stable argsort over all n slots: identical prefix
-    (scripts/profile_compaction.py asserts it), comparable cost today
-    (~0.03 ms at the 1.17M-slot LOD-crowd scale on v5e) but free of the
-    sort's log²-pass scaling.  Unfilled tail slots (n_valid < cap)
+    earlier stable argsort over all n slots: identical prefix
+    (scripts/profile_compaction.py asserts it), free of the sort's
+    log²-pass scaling.  Unfilled tail slots (n_valid < cap)
     gather slot 0's data; their `valid` is forced False below, which is
     all any downstream stage reads.
-
-    lazy_attrs: leave the wide `attrs` payload UN-gathered.  The
-    gathered-up-front attr rows are the dominant compaction cost (a
-    cap × 128-padded-float row gather once packed — charged per element
-    on TPU), yet the Pallas stream build re-gathers payload rows again
-    by pair/order index.  With lazy_attrs the compacted dict instead
-    carries "attr_perm" (the (cap,) permutation) and "attr_full" (the
-    ORIGINAL full-size attrs/screen/inv_area/valid + extras), and
-    ops/pallas_tile composes the permutation into its stream gathers —
-    payload[perm[pair]] row for row equals the eager path's
-    payload_c[pair], so frames are bit-identical while gather cost
-    scales with the (much smaller) stream lengths.  Only the Pallas
-    route understands these keys; every other consumer must use the
-    eager mode.
 
     Returns (tris, per_tri_extra, n_valid) with all arrays cap-sized.
     """
     valid = tris["valid"]
-    # Deferred dicts (build_triangles defer_attrs) make lazy mode a
-    # no-op: their wide varyings are per-vertex already.
-    lazy_attrs = lazy_attrs and "vert_attrs" not in tris
     n = valid.shape[0]
     cap = min(int(cap), n)
     pos = jnp.cumsum(valid.astype(jnp.int32)) - 1
@@ -354,9 +331,6 @@ def compact_triangles(tris: Dict, cap: int,
     def g(a):
         return jnp.take(a, perm, axis=0)
 
-    # In lazy mode "attrs" is OMITTED from the compacted dict (a consumer
-    # that can't compose the permutation should fail loudly, not read
-    # mis-shaped rows); the full rows ride in "attr_full" below.
     # Deferred-attr dicts (build_triangles defer_attrs): "attr_src" rows
     # are per-slot (gathered), "vert_attrs" is per-VERTEX (untouched —
     # this is the whole point: the wide varying tables never see a
@@ -366,23 +340,13 @@ def compact_triangles(tris: Dict, cap: int,
         if k == "vert_attrs":
             out[k] = v
         elif k in ("attrs", "attr_src"):
-            if not (lazy_attrs and k == "attrs"):
-                out[k] = {ak: g(av) for ak, av in v.items()}
+            out[k] = {ak: g(av) for ak, av in v.items()}
         else:
             out[k] = g(v)
     out["valid"] = out["valid"] & tail_ok
     extra = None
     if per_tri_extra is not None:
         extra = {k: g(jnp.asarray(v)) for k, v in per_tri_extra.items()}
-    if lazy_attrs:
-        out["attr_perm"] = perm
-        out["attr_full"] = {
-            "attrs": tris["attrs"], "screen": tris["screen"],
-            "inv_area": tris["inv_area"], "valid": valid,
-            "extra": ({k: jnp.asarray(v)
-                       for k, v in per_tri_extra.items()}
-                      if per_tri_extra is not None else None),
-        }
     return out, extra, n_valid
 
 
@@ -456,9 +420,7 @@ def build_triangles(vertex_shader: Callable, vertex_input: Dict,
 
     defer_attrs: skip materializing per-slot varyings entirely — the
     dominant geometry cost at LOD-crowd scale (per-slot vertex gathers of
-    every varying channel are charged per ELEMENT on TPU; measured
-    ~145 ms of a 280 ms 4K frame at 1.17M packed slots,
-    scripts/profile_lod.py prep_only).  The returned dict instead carries
+    every varying channel; scripts/profile_lod.py prep_only).  The returned dict instead carries
     "vert_attrs" (the per-VERTEX shaded varyings, untouched) and
     "attr_src" ((N, 3) ia/ib/t lerp decompositions per slot vertex);
     materialize_attrs() rebuilds "attrs" bit-exactly at any later point —

@@ -25,17 +25,15 @@ to the pixel is among its K best:
 
 Enable with RenderParams(kbuffer=K); K=4 covers the reference's content.
 
-Cost: this XLA K-slot fold is the PORTABLE FALLBACK (other depth modes,
-CPU runs) and is expensive — each layer re-streams the bins for its
-one-hot resolve and runs the full interpolate+shade (~95 ms per layer at
-1080p dust2 on one v5e: K=2 → 190 ms, K=4 → 378 ms).  On TPU with
-LESS_EQUAL depth the engine instead routes K-buffer frames through
-ops.pallas_tile.render_tile_pallas_kbuffer — depth peeling over the
-single-winner tile kernel with the opaque short-circuit (peel passes
-whose prev maps show no eligible pixel lax.cond-skip wholesale):
-measured K=4 dust2 @1080p = 15.9 ms / 62.7 fps, bit-identical to this
-fold (BENCHMARKS.md round 3).  K-buffer mode now charges for the
-translucency actually on screen, not for K itself.
+Cost: this XLA K-slot fold is the PORTABLE path (other depth modes, CPU
+runs) and is expensive — each layer re-streams the bins for its one-hot
+resolve and runs the full interpolate+shade.  Where tile_fold.fold_route
+picks the tile kernel (LESS_EQUAL on a GPU), the engine instead routes
+K-buffer frames through ops.tile_fold.render_kbuffer_peel — depth
+peeling over the single-winner kernel with the opaque short-circuit
+(peel passes whose prev maps show no eligible pixel lax.cond-skip
+wholesale), so K-buffer mode charges for the translucency actually on
+screen, not for K itself.
 """
 
 from __future__ import annotations
@@ -285,6 +283,7 @@ def render_binned_kbuffer(tris: Dict, fragment_shader, uniforms: Dict,
                           ).astype(F32)
                 return acc + jax.lax.dot_general(
                     onehot, pl, (((2,), (1,)), ((0,), (0,))),
+                    precision=jax.lax.Precision.HIGHEST,
                     preferred_element_type=jnp.float32)
             return body
 

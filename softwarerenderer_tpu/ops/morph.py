@@ -6,7 +6,7 @@ reference ignores them entirely — its only animation is the flip-book
 frame swap (/root/reference/ModelLoader.cs:331-348) — so this is
 beyond-reference importer completeness, same tier as skeletal skinning.
 
-TPU-first design mirrors ops/skinning.py: deltas pack once as static
+The design mirrors ops/skinning.py: deltas pack once as static
 scene buffers (vertex-major (Vm, K, 3) so the weight blend is one
 broadcast multiply + K-axis reduce, batched over every morphing vertex
 in the scene); weights come from a traced source — an override uniform,

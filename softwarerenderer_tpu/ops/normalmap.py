@@ -4,7 +4,7 @@ The reference's asset pipeline extracts normal-map texture paths
 (/root/reference/ModelLoader.cs:221-281, slot "normals" — e.g. the Gun's
 `textures/Material.002_normal.png`) and Assimp even computes tangents
 (CalcTangentSpace, ModelLoader.cs:149), but no reference shader ever
-samples them.  This module closes that gap the TPU way:
+samples them.  This module closes that gap on the device:
 
   * ``compute_tangents`` — host-side per-vertex tangent generation
     (uv-gradient accumulation + Gram-Schmidt, handedness in w), run once

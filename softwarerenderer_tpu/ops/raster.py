@@ -1,9 +1,9 @@
 """Deferred (visibility-buffer) rasterization as fused XLA array programs.
 
-TPU-first re-design of the reference's tile-locked scanline rasterizer
+Array re-design of the reference's tile-locked scanline rasterizer
 (/root/reference/Rasterizer.cs:401-539).  The reference serializes
 framebuffer read-modify-writes with a 16×16-px mutex matrix (SURVEY.md
-§2.2 P2); on TPU the z-buffer contention is designed out by turning the
+§2.2 P2); here the z-buffer contention is designed out by turning the
 depth test into an ASSOCIATIVE masked reduction over triangles (SURVEY.md
 §7 hard-part (a)):
 
@@ -18,7 +18,7 @@ depth test into an ASSOCIATIVE masked reduction over triangles (SURVEY.md
       blend with the background.
 
 The brute-force variant tests every triangle against every pixel in
-VMEM-sized chunks — the correctness slice (SURVEY.md §7 step 3).  The
+bounded chunks — the correctness slice (SURVEY.md §7 step 3).  The
 binned variant (ops/binning.py) cuts the work to bbox-overlapping tiles.
 
 Sequential-semantics notes:
@@ -60,7 +60,7 @@ DEPTH_CLEAR = jnp.finfo(jnp.float32).min  # float.MinValue (MainWindow.cs:434)
 NO_TRI = np.int32(-1)   # plain host scalar: a module-level jnp
                         # constant would initialize the backend at
                         # import (breaking jax.distributed) and
-                        # can't be captured by Mosaic kernels
+                        # can't be captured by Pallas kernels
 
 # Depth-test reduction rules: mode -> (use_max, later_wins_ties).
 # Derived from the reference's inverted comparison table
@@ -198,8 +198,7 @@ def interpolate_at_pixels(tris: Dict, tri_id: jnp.ndarray,
     Gather-efficiency: all per-vertex varyings plus the triangle's screen
     positions and inv_area are packed into ONE contiguous (N, 3, Ktot)
     block, so each pixel issues a single row-gather instead of one gather
-    per attribute — this is the difference between HBM-friendly and
-    gather-bound on TPU.
+    per attribute.
     """
     H, W = tri_id.shape
     t = jnp.where(covered, tri_id, 0)

@@ -11,12 +11,12 @@ hit's barycentrics, atlas regions resolved per triangle), and optional
 secondary rays toward the light give geometrically exact hard shadows —
 no shadow-map resolution artifacts.
 
-TPU-first shape: rays × triangles evaluate as chunked (C, T) tensor ops
-inside one jitted program (`lax.map` over ray chunks bounds peak memory
-at C·T); there is no BVH — brute force is the right first TPU design
-because the MXU/VPU eat dense regular work, and T here is scene-sized
-(10⁴), not film-sized.  Cost scales as pixels × triangles: a quality /
-ground-truth mode, not the interactive path (see BENCHMARKS.md).
+Shape: rays × triangles evaluate as chunked (C, T) tensor ops inside one
+jitted program (`lax.map` over ray chunks bounds peak memory at C·T);
+the brute path has no BVH, since T here is scene-sized (10⁴), not
+film-sized.  Its cost scales as pixels × triangles: a quality /
+ground-truth mode.  ``cluster_cap`` switches to the bundle-culled pair
+sweep (ops/rt_accel.py), the interactive path.
 
 Outputs match the raster conventions: depth = −(ndcZ+1)/2 at the hit
 (the device raster's negated-reversed convention, directly comparable
@@ -66,10 +66,7 @@ def build_rt_world(scene: Dict, uniforms: Dict) -> Dict:
         tri_mask=mask)
     # ONE flat (T, 22) shading table: uv corners | atlas region | color
     # corners.  Per-ray attribute reconstruction then costs a single
-    # row-gather instead of six separate takes — measured on v5e at
-    # 640×400: the separate takes add ~13 ms/frame (each small take op
-    # pays ~1.5 ms of launch overhead; a wide row gather is
-    # bandwidth-priced), the fused table ~1 ms.  Region ints are exact
+    # row-gather instead of six separate takes.  Region ints are exact
     # in f32 (atlas dims ≪ 2^24).
     world["shade_table"] = jnp.concatenate([
         uv.reshape(-1, 6),
@@ -78,7 +75,7 @@ def build_rt_world(scene: Dict, uniforms: Dict) -> Dict:
         col.reshape(-1, 12),
     ], axis=1)
     # Same trick for the winner-geometry reconstruction inside the
-    # bundle-cast wrappers (rt_pallas/rt_accel pair paths): v0 | e1 |
+    # bundle-cast wrappers (rt_accel pair paths): v0 | e1 |
     # e2 | n0 | n1 | n2 as one (T, 18) row-gather instead of six takes.
     world["geom_table"] = jnp.concatenate([
         world["v0"], world["v1"] - world["v0"], world["v2"] - world["v0"],
@@ -92,7 +89,7 @@ def _shade_hits(hits: Dict, world: Dict, uniforms: Dict,
     """Build the raster-ABI frag dict at each hit and run the user
     fragment shader; returns (rgba (R, 4), depth (R,)).
 
-    TPU gathers charge per ELEMENT (BENCHMARKS.md), so this pass reuses
+    Gathers cost per element, so this pass reuses
     the cast's barycentrics when the hits dict carries "u"/"v" (the
     bundle-cast paths export them) instead of re-gathering the 9 corner
     elements per ray to re-derive them; white_colors=True additionally
@@ -191,10 +188,7 @@ def render_frame_raytraced(scene: Dict, uniforms: Dict,
     primary rays ARE the camera transform (a custom vertex program that
     displaces clip positions has no ray-space equivalent here; morph/
     skin/flip-book vertex updates likewise don't apply).  `chunk` is the
-    rays-per-step bound: peak memory scales as chunk × triangles, and
-    smaller is FASTER until loop overhead bites — the (chunk, T, 3)
-    Möller-Trumbore intermediates must stay VMEM-resident (measured on
-    v5e at 480×320/3k tris: 256→76 ms, 512→77, 1024→85, 4096→200).
+    rays-per-step bound: peak memory scales as chunk × triangles.
     shadows: secondary rays per hit toward -light_direction; occluded
     hits fall toward uniforms["rt_shadow_floor"] (default 0.35) of
     their shaded color — geometrically exact shadows.  shadow_samples
@@ -210,7 +204,7 @@ def render_frame_raytraced(scene: Dict, uniforms: Dict,
     (bundle, cluster) pairs compact to one static table of size
     max(cluster_cap) × n_bundles, and chunked dense Möller–Trumbore
     sweeps (pair_chunk pairs per step) evaluate primary / shadow /
-    reflection passes — work ∝ live pairs, full VPU utilization, with a
+    reflection passes — work ∝ live pairs, dense blocks, with a
     lax.cond brute-force fallback on table overflow — exact for any cap
     (winner identity identical; floats to fp tolerance, see rt_accel
     docstring).  Size cluster_cap from rt_accel.bundle_pair_count /
@@ -387,22 +381,7 @@ def trace_pixel_rows(scene: Dict, uniforms: Dict, params: RenderParams,
         from softwarerenderer_tpu.ops import rt_accel
         tw = min(pair_tile[1], W)
         th = min(pair_tile[0], h)
-        # The Pallas bundle-sweep kernel (ops/rt_pallas.py) replaces the
-        # XLA pair sweep whenever it can compile: the XLA sweep is
-        # GATHER-bound (~2.5 ns per gathered element) while the kernel
-        # DMAs cluster blocks and keeps the fold in VMEM.  Falls back to
-        # the XLA path off-TPU (CPU tests run it in interpret mode via
-        # params.pallas_interpret) or when the tile ray count is not a
-        # 128 multiple (kernel lane alignment).
-        use_pl = ((th * tw) % 128 == 0
-                  and params.use_pallas
-                  and (jax.default_backend() == "tpu"
-                       or params.pallas_interpret))
-        if use_pl:
-            from softwarerenderer_tpu.ops import rt_pallas
-            accel = rt_pallas.build_rt_accel_pl(world)
-        else:
-            accel = rt_accel.build_rt_accel(world, group=cluster_group)
+        accel = rt_accel.build_rt_accel(world, group=cluster_group)
         hp = -(-h // th) * th
         Wp = -(-W // tw) * tw
         d2 = jnp.pad(jnp.asarray(dirs, F32), ((0, hp - h), (0, Wp - W),
@@ -416,39 +395,19 @@ def trace_pixel_rows(scene: Dict, uniforms: Dict, params: RenderParams,
         i_t = i2.reshape(nth, th, ntw, tw).transpose(0, 2, 1, 3) \
                 .reshape(B, R)
         pair_cap = int(max(use_accel)) * B
-        # Kernel survivor capacity: overflow-proof by default (capb =
-        # n_clusters) — an overflowing pass would fall back to the
-        # whole-pass brute sweep, a catastrophic cliff the shadow pass
-        # (rays toward the light keep many clusters alive) hit when this
-        # was sized from the primary-pass ladder.
-        capb_pl = None
 
-        if use_pl:
-            def cast_nearest(o_b, d_b, origin_shared=False):
-                return rt_pallas.raycast_bundles_nearest_pl(
-                    o_b, d_b, world, accel, capb=capb_pl,
-                    face_mask=rc.FACE_MASK_NONE, tri_mask=tri_mask,
-                    interpret=params.pallas_interpret)
+        def cast_nearest(o_b, d_b, origin_shared=False):
+            return rt_accel.raycast_bundles_nearest(
+                o_b, d_b, world, accel, pair_cap=pair_cap,
+                chunk_pairs=pair_chunk, face_mask=rc.FACE_MASK_NONE,
+                tri_mask=tri_mask, origin_shared=origin_shared)
 
-            def cast_any(o_b, d_b, dir_shared=False):
-                return rt_pallas.raycast_bundles_any_pl(
-                    o_b, d_b, world, accel, capb=capb_pl,
-                    face_mask=rc.FACE_MASK_NONE, tri_mask=tri_mask,
-                    interpret=params.pallas_interpret)
-        else:
-            def cast_nearest(o_b, d_b, origin_shared=False):
-                return rt_accel.raycast_bundles_nearest(
-                    o_b, d_b, world, accel, pair_cap=pair_cap,
-                    chunk_pairs=pair_chunk, face_mask=rc.FACE_MASK_NONE,
-                    tri_mask=tri_mask, origin_shared=origin_shared)
-
-            def cast_any(o_b, d_b, dir_shared=False):
-                return rt_accel.raycast_bundles_any(
-                    o_b, d_b, world, accel, pair_cap=pair_cap,
-                    chunk_pairs=max(32, pair_chunk
-                                    // max(1, shadow_samples)),
-                    face_mask=rc.FACE_MASK_NONE, tri_mask=tri_mask,
-                    dir_shared=dir_shared)
+        def cast_any(o_b, d_b, dir_shared=False):
+            return rt_accel.raycast_bundles_any(
+                o_b, d_b, world, accel, pair_cap=pair_cap,
+                chunk_pairs=max(32, pair_chunk // max(1, shadow_samples)),
+                face_mask=rc.FACE_MASK_NONE, tri_mask=tri_mask,
+                dir_shared=dir_shared)
 
         o_t = jnp.broadcast_to(eye, (B, R, 3))
         prim = cast_nearest(o_t, d_t, origin_shared=True)

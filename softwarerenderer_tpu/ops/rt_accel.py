@@ -1,9 +1,10 @@
 """Ray-tracing acceleration: Morton-clustered triangles + conservative
-ray-BUNDLE culling — a TPU-native answer to "the ray tracer needs a BVH".
+ray-BUNDLE culling — an array-program answer to "the ray tracer needs a
+BVH".
 
 Classic BVHs are per-ray pointer chases: data-dependent traversal, tiny
-irregular reads — the exact shape a TPU cannot execute well.  The
-observation that fits the hardware instead: the renderer's rays arrive
+irregular reads — a poor fit for one dense jitted program.  The
+observation that fits instead: the renderer's rays arrive
 in COHERENT chunks (a pixel tile's primary rays share a camera frustum;
 a tile's shadow rays march toward one light; see ops/raytrace.py), so
 culling can happen once per CHUNK against clustered geometry, and the
@@ -429,9 +430,8 @@ def _pair_sweep(origins, directions, accel: Dict, slot_mask,
             se2 = jnp.take(accel["e2"], rows, axis=0)
             sgid = jnp.take(accel["perm"], rows)        # (C, G)
             sok = jnp.take(slot_mask, rows) & tkc[:, None]
-            # Per-pair ray gathers are ELEMENT-COUNT-bound on TPU
-            # (~2.5 ns/element — BENCHMARKS.md gather model): at C·R·3
-            # elements per chunk they dominate the sweep for big frames.
+            # Per-pair ray gathers cost per element: at C·R·3 elements
+            # per chunk they dominate the sweep for big frames.
             # Rays shared across every bundle (primary origins = the
             # eye; hard-shadow directions = the light) broadcast
             # instead — declared by the caller via *_shared.

@@ -130,7 +130,7 @@ def shadow_factor(world_position, uniforms, xp=jnp, bias: float = 4e-3):
     d_f = -(ndc[..., 2] + F32(1.0)) * F32(0.5)
     xi = xp.clip(sx.astype(xp.int32), 0, S - 1)
     yi = xp.clip(sy.astype(xp.int32), 0, S - 1)
-    # 4-byte row gather (gather-lean: see BENCHMARKS.md gather model).
+    # 4-byte row gather.
     d_m = xp.take(smap.reshape(S * S, 1), yi * S + xi, axis=0)[..., 0]
     inside = (sx >= 0) & (sx < S) & (sy >= 0) & (sy < S)
     lit = (d_f >= d_m - F32(bias)) | ~inside

@@ -7,7 +7,7 @@ skeletal animation — joint hierarchies, inverse bind matrices, per-vertex
 traced ``uniforms["anim_time"]`` scalar so playback never recompiles or
 re-uploads vertex data.
 
-TPU-first design:
+Design:
   * Keyframe tracks are resampled to a UNIFORM clock at import
     (io_host/gltf.py), so on-device sampling is one gather of two frames
     + a lerp (nlerp for rotations) — no per-channel searchsorted.
@@ -17,7 +17,7 @@ TPU-first design:
     skeleton DEPTH, not joint count, so an N-instance skinned crowd
     pays the same number of steps as one character.  Vertices are many —
     all per-vertex work is one batched matrix blend + one batched point
-    transform on the MXU.
+    transform.
   * Matrices follow the repo's row-vector .NET convention
     (utils/mathlib.py): v' = v @ M, local = S @ R @ T, world_j =
     local_j @ world_parent, skin_j = inverse_bind_j @ world_j.
@@ -32,6 +32,8 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+
+from softwarerenderer_tpu.utils import mathlib as ml
 
 F32 = np.float32
 
@@ -114,7 +116,7 @@ def forward_kinematics(local, parent, xp=np):
     def body(j, world):
         p = parent[j]
         pm = jnp.where(p < 0, eye, world[jnp.maximum(p, 0)])
-        return world.at[j].set(local[j] @ pm)
+        return world.at[j].set(ml.matmul(local[j], pm, xp=jnp))
 
     return jax.lax.fori_loop(0, J, body, jnp.zeros_like(local))
 
@@ -146,7 +148,7 @@ def forward_kinematics_levels(local, parent, level_ids, xp=np):
         p = jnp.take(parent, idc, axis=0)
         pm = jnp.where((p < 0)[:, None, None], eye,
                        jnp.take(world, jnp.maximum(p, 0), axis=0))
-        world = world.at[ids].set(loc @ pm, mode="drop")
+        world = world.at[ids].set(ml.matmul(loc, pm, xp=jnp), mode="drop")
     return world
 
 
@@ -171,7 +173,7 @@ def skin_matrices(scene: Dict, uniforms: Dict, xp=np):
             xp=xp)
     else:
         world = forward_kinematics(local, parent, xp=xp)
-    return xp.asarray(scene["joint_inv_bind"], F32) @ world
+    return ml.matmul(xp.asarray(scene["joint_inv_bind"], F32), world, xp=xp)
 
 
 def apply_skinning(vin: Dict, scene: Dict, uniforms: Dict, xp=np) -> Dict:
@@ -190,8 +192,8 @@ def apply_skinning(vin: Dict, scene: Dict, uniforms: Dict, xp=np) -> Dict:
     pos = xp.take(vin["position"], vidx, axis=0)
     nrm = xp.take(vin["normal"], vidx, axis=0)
     ph = xp.concatenate([pos, xp.ones_like(pos[..., :1])], axis=-1)
-    new_pos = xp.einsum("vi,vij->vj", ph, blend)[..., :3]
-    new_nrm = xp.einsum("vi,vij->vj", nrm, blend[..., :3, :3])
+    new_pos = ml.einsum("vi,vij->vj", ph, blend, xp=xp)[..., :3]
+    new_nrm = ml.einsum("vi,vij->vj", nrm, blend[..., :3, :3], xp=xp)
     new_nrm = new_nrm / xp.sqrt(xp.maximum(
         xp.sum(new_nrm * new_nrm, axis=-1, keepdims=True), F32(1e-30)))
 

@@ -8,7 +8,7 @@ every raster path — deferred, fused, Pallas, forward, K-buffer — because
 it runs as a post-step on the (color, depth) frame, inside the same
 jitted program.
 
-TPU notes: the directions are pure elementwise math (VPU); the panorama
+Cost: the directions are pure elementwise math; the panorama
 fetch is one bilinear sample (4 row-gathers) per pixel, the same cost
 class as the texture atlas path.  Enable by passing
 uniforms["sky_panorama"] = (H, W, 4) float32/uint8 array (see

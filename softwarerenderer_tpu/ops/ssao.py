@@ -8,8 +8,8 @@ config.py semantics note), compare it against fixed-offset neighbors,
 and darken pixels whose neighborhood is consistently nearer (creases,
 contact lines).
 
-TPU-first: neighbor access is static pixel SHIFTS of the depth plane
-(pad + slice — zero gathers, fully fused elementwise VPU work), so the
+Neighbor access is static pixel SHIFTS of the depth plane (pad + slice
+— zero gathers, fully fused elementwise work), so the
 whole effect costs a handful of rolls over an (H, W) f32 map.
 """
 

@@ -4,7 +4,7 @@ INSIDE the jitted frame program.
 The reference draws every piece of text (chat, nametags, health, debug
 panel) host-side through ImGui onto the GL surface (Renderer.cs:544-820);
 our window overlay (io_host/ui.py) is that path's analog.  This op is the
-TPU-native alternative: strings are packed host-side into small
+device alternative: strings are packed host-side into small
 static-shape integer/float arrays (`pack_text`) that ride the uniforms
 pytree — so CONTENT and POSITION are traced values (changing text never
 recompiles) — and compositing happens on device as one strip-gather plus

@@ -33,12 +33,8 @@ def quantize_u8_grid(data: np.ndarray) -> np.ndarray:
 def pack_rgba8(data: np.ndarray) -> np.ndarray:
     """(H, W, 4) float32 in [0,1] → (H, W, 4) uint8 RGBA.
 
-    The device atlas format: 4-byte texel ROWS instead of 16-byte f32 rows.
-    TPU gather throughput is set by whether the table stays VMEM-resident —
-    measured at 1080p (2M texel fetches): u8×4 rows ≈ 6 ms for tables up to
-    millions of texels, f32×4 rows 24 ms once the table spills to HBM, and
-    any SCALAR gather (e.g. packed-u32-per-texel) hits a slow lowering at
-    ~16 ms regardless of size.  Row gathers of the narrowest dtype win."""
+    The device atlas format: 4-byte texel ROWS instead of 16-byte f32 rows,
+    so a texel fetch moves a quarter of the bytes."""
     return np.clip(np.round(np.asarray(data, np.float32) * 255.0),
                    0, 255).astype(np.uint8)
 
@@ -115,24 +111,12 @@ def _atlas_fetch(data, idx, ah, aw, xp):
 
 
 def _atlas_region(offsets, sizes, tex_id, xp):
-    """Per-element (oy, ox, h, w) from the atlas tables.
-
-    A per-PIXEL `take` from even a 12-entry table costs ~6.8 ms at 1080p on
-    TPU (gather lowering is element-count-bound); a one-hot matmul does the
-    same lookup in ~2.6 ms.  Used only on the custom-shader path — the
-    engine's own shaders pre-resolve regions per TRIANGLE (18k lookups) and
-    carry them as flat varyings (sample_atlas_region), costing nothing per
-    pixel."""
+    """Per-element (oy, ox, h, w) from the atlas tables — an integer
+    gather, exact for any offset.  Used only on the custom-shader path:
+    the engine's own shaders pre-resolve regions per TRIANGLE and carry
+    them as flat varyings (sample_atlas_region)."""
     offsets = xp.asarray(offsets, dtype=xp.int32)
     sizes = xp.asarray(sizes, dtype=xp.int32)
-    n = offsets.shape[0]
-    if xp is not np and n <= 64:
-        table = xp.concatenate([offsets, sizes], axis=-1).astype(xp.float32)
-        onehot = (tex_id[..., None]
-                  == xp.arange(n, dtype=xp.int32)).astype(xp.float32)
-        vals = onehot @ table                      # (..., 4)
-        vals = vals.astype(xp.int32)
-        return vals[..., 0], vals[..., 1], vals[..., 2], vals[..., 3]
     off = xp.take(offsets, tex_id, axis=0)
     size = xp.take(sizes, tex_id, axis=0)
     return off[..., 0], off[..., 1], size[..., 0], size[..., 1]

@@ -1,11 +1,11 @@
 """Multi-host (DCN) scale-out entry points.
 
-Within a pod slice, framebuffer/triangle sharding rides ICI
+Within a host, framebuffer/triangle sharding runs over the local devices
 (parallel/sharding.py, parallel/ring.py).  Across hosts, JAX's standard
 multi-controller runtime carries the same programs over DCN: every host
 runs the identical jitted frame, the global mesh spans all processes, and
-XLA partitions collectives into intra-slice (ICI) and cross-slice (DCN)
-phases automatically.  This module is the thin bootstrap; it cannot be
+XLA partitions collectives into intra-host and cross-host phases
+automatically.  This module is the thin bootstrap; it cannot be
 exercised in a single-host image, but the mesh construction and sharding
 layout below are what a multi-host launch uses unchanged.
 

@@ -2,10 +2,10 @@
 
 Split-screen / CCTV / stereo rendering is embarrassingly parallel over
 the VIEW axis — the scene is shared, only the camera uniforms differ —
-so the TPU-native composition is a `shard_map` over a ("view",) mesh
-where each device runs the COMPLETE single-chip frame (the same
-render_frame the engine uses: Pallas tile kernel on TPU, fused resolve
-on CPU meshes) on its own camera.  No collectives at all: scene and
+so the composition is a `shard_map` over a ("view",) mesh where each
+device runs the COMPLETE single-device frame (the same render_frame the
+engine uses, with the route tile_fold.fold_route picks) on its own
+camera.  No collectives at all: scene and
 base uniforms replicate, the stacked view overrides split, and the
 (V, H, W, 4) output comes back view-sharded.
 

@@ -9,9 +9,8 @@ winner all-reduce it needs for its tri axis.  The deterministic
 soft-shadow jitter is seeded by GLOBAL ray ids, so an N-device frame is
 bit-identical to the single-device frame (tested on the CPU mesh).
 
-Cost model: the single-chip mode is pixels × triangles bound
-(BENCHMARKS.md) — fb sharding divides the pixel term by the device
-count, so an 8-chip slice ray-traces ~8× the area at the same latency.
+Cost model: the single-device brute mode is pixels × triangles bound —
+fb sharding divides the pixel term by the device count.
 """
 
 from __future__ import annotations

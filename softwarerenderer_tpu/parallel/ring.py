@@ -1,4 +1,4 @@
-"""Ring-pass rendering: triangle shards rotate over ICI, framebuffer stays.
+"""Ring-pass rendering: triangle shards rotate, the framebuffer stays.
 
 The ring-attention-shaped dataflow from SURVEY.md §5: each device owns a
 horizontal framebuffer band AND 1/n of the triangles; the triangle shards
@@ -17,7 +17,8 @@ Two ring passes:
 
 then interpolation + fragment shading run band-locally.
 
-ICI traffic: 2·(n−1) permutes of the triangle SoA per frame — independent
+Collective traffic: 2·(n−1) permutes of the triangle SoA per frame —
+independent
 of resolution; the broadcast design in parallel/sharding.py is the right
 choice when triangles fit per-chip, this one when they don't.
 """
@@ -290,6 +291,7 @@ def render_frame_ring(scene: Dict, uniforms: Dict, params: RenderParams,
             onehot = (best_i[..., None] == gidx).astype(F32)  # (h, W, 2Tl)
             acc = acc + jax.lax.dot_general(
                 onehot, state["payload"], (((2,), (0,)), ((), ())),
+                precision=jax.lax.Precision.HIGHEST,
                 preferred_element_type=jnp.float32)
             nxt = {kk: jax.lax.ppermute(vv, AXIS, perm)
                    for kk, vv in state.items()}

@@ -1,35 +1,31 @@
-"""Multi-chip rendering: framebuffer + triangle sharding over a device mesh.
+"""Multi-device rendering: framebuffer + triangle sharding over a mesh.
 
 The reference scales by decomposing the screen into mutex-guarded tiles on
-CPU threads (SURVEY.md §2.2 P2) — the TPU-native scale-out (SURVEY.md §5
-"long-context" analog, §7 step 8) shards the same two axes over a
-`jax.sharding.Mesh` with `shard_map`:
+CPU threads (SURVEY.md §2.2 P2).  Here the same two axes are sharded over
+a `jax.sharding.Mesh` with `shard_map` (SURVEY.md §7 step 8):
 
   * axis "fb" — framebuffer ROWS: each device rasterizes + shades its own
     horizontal band.  Embarrassingly parallel: triangles are replicated
-    (small), pixels are not.  This is the sequence-parallel analog: the
-    screen is the "long dimension".
+    (small), pixels are not.
   * axis "tri" (optional) — TRIANGLES: geometry + visibility fold only the
     local triangle shard; shard winners combine with a LEXICOGRAPHIC
-    (depth, global-submission-index) all-reduce over ICI (pmax/pmin pairs),
-    the collective form of the same total preorder the single-chip fold
+    (depth, global-submission-index) all-reduce (pmax/pmin pairs), the
+    collective form of the same total preorder the single-device fold
     uses.  Each device then shades only the pixels its shard won and the
-    color contributions combine with one psum.  This is the data-parallel
-    analog for the 1M+-triangle instancing config (BASELINE config 5).
+    color contributions combine with one psum (BASELINE config 5's
+    1M+-triangle instancing).
 
 Collectives used: pmax/pmin/psum on ("tri",) only — everything on the "fb"
-axis is local, so ICI traffic is O(pixels·tri_shards), independent of
-triangle count.
+axis is local, so collective traffic is O(pixels·tri_shards), independent
+of triangle count.  The devices are taken from ``jax.devices()`` in order;
+no interconnect topology is assumed.
 
-Per-shard work runs the SAME fast architecture as single chip (round 3;
-VERDICT r2 #1): on TPU with contiguous row bands, each shard launches the
-single-pass Pallas tile kernel (fold + one-hot resolve + interpolation
-in-kernel, ops/pallas_tile.py) and shades its interpolated G-buffer with
-one XLA pass; the balanced/row-mapped and CPU-mesh modes fold visibility
-with the XLA binned reducer and resolve the all-reduced winner through
-the fused one-hot path (ops/binning.shade_binned_fused).  The round-1
-per-pixel row-gather resolve (raster.shade_deferred) survives only behind
-the brute-force (binned=False) debug path.
+Per-shard work runs the single-device architecture: where
+``tile_fold.fold_route`` picks the tile kernel (contiguous bands and
+balanced rows), each shard folds visibility with it and shades with
+per-pixel gathers (raster.shade_deferred); otherwise the XLA binned
+reducer folds and the fused one-hot path resolves the winner
+(ops/binning.shade_binned_fused).
 """
 
 from __future__ import annotations
@@ -48,8 +44,8 @@ from softwarerenderer_tpu.ops.raster import (
     DEPTH_CLEAR,
     NO_TRI,
     _REDUCE_RULES,
-    _blend,
 )
+from softwarerenderer_tpu.ops.tile_fold import fold_route, fold_visibility
 
 F32 = jnp.float32
 
@@ -135,7 +131,7 @@ def render_frame_sharded(scene: Dict, uniforms: Dict, params: RenderParams,
 
     balanced="tiles" (binned only): ownership at individual-TILE
     granularity — a single hot tile row can split across devices (ROADMAP
-    #9).  Per-tile occupancy is one (nty, T)×(T, ntx) MXU matmul over the
+    #9).  Per-tile occupancy is one (nty, T)×(T, ntx) matmul over the
     bbox row/column overlap masks; tiles assign by the same greedy LPT
     under an equal-tiles-per-device constraint; each device renders its
     tiles as an (tiles_per_dev·tile_h, tile_w) pseudo-image and the final
@@ -208,21 +204,17 @@ def render_frame_sharded(scene: Dict, uniforms: Dict, params: RenderParams,
                          f"got {balanced!r}")
     if balanced_mode and not params.binned:
         raise ValueError("balanced fb sharding requires binned=True")
-    kb_pallas = (params.use_pallas
-                 and params.depth_test == DepthTest.LESS_EQUAL
-                 and (jax.default_backend() == "tpu"
-                      or params.pallas_interpret))
+    route = fold_route(params)
     if params.kbuffer > 1 and (mesh.shape["tri"] != 1
                                or not params.binned
                                or balanced_mode == "tiles"
                                or (balanced_mode == "rows"
-                                   and not (kb_pallas
-                                            and params.tile_h <= 32))):
+                                   and route == "xla")):
         raise NotImplementedError(
             "sharded K-buffer supports replicated triangles (n_tri == 1, "
-            "binned) over contiguous fb bands (any backend) or "
-            "balanced='rows' through the Pallas kernel's tile-row map "
-            "(use_pallas, LESS_EQUAL depth, tile_h <= 32)")
+            "binned) over contiguous fb bands (any route) or "
+            "balanced='rows' through the tile kernel's tile-row map "
+            "(use_pallas, LESS_EQUAL depth, power-of-two tiles)")
     if balanced_mode == "rows":
         n_tile_rows = -(-H // params.tile_h)
         if H % params.tile_h or n_tile_rows % n_fb:
@@ -314,8 +306,7 @@ def render_frame_sharded(scene: Dict, uniforms: Dict, params: RenderParams,
 
         # Per-triangle material plumbing (×2 for the clipper's fan slots),
         # pruned by the shader's tri_extras registry like the single-chip
-        # engine — built BEFORE visibility because the Pallas kernel path
-        # folds it into its winner payload.
+        # engine.
         tid2 = jnp.repeat(tri_tex, 2)
         aoff = jnp.asarray(scene["atlas_offsets"], jnp.int32)
         asiz = jnp.asarray(scene["atlas_sizes"], jnp.int32)
@@ -415,34 +406,28 @@ def render_frame_sharded(scene: Dict, uniforms: Dict, params: RenderParams,
             # Ordered translucency at scale: triangles are replicated
             # (n_tri == 1 enforced above), so each shard's K-layer fold +
             # submission-order replay is self-contained — the kernel
-            # peel on TPU, the XLA K-slot fold elsewhere.  Balanced rows
-            # ride the kernel's tile-row map (validated above): each
-            # shard peels its OWNED global tile rows; the outer gather
-            # restores row order.
+            # peel where the route allows, the XLA K-slot fold elsewhere.
+            # Balanced rows ride the kernel's tile-row map (validated
+            # above): each shard peels its OWNED global tile rows; the
+            # outer gather restores row order.
             row_offset_k = fb_idx * shard_h
-            if balanced_mode == "rows":
-                from softwarerenderer_tpu.ops.pallas_tile import (
-                    render_tile_pallas_kbuffer,
+            if route != "xla":
+                from softwarerenderer_tpu.ops.tile_fold import (
+                    render_kbuffer_peel,
                 )
-                my_rows, row_map_px, _ = _rows_assignment()
-                out_c, out_d = render_tile_pallas_kbuffer(
-                    tris, fragment_shader, u, shard_params, fb_color,
-                    fb_depth, per_tri_extra=per_tri_in, row_offset=0,
-                    tile_row_map=my_rows, full_height=H,
-                    interpret=params.pallas_interpret)
-                return out_c, out_d, row_map_px
-            if params.use_pallas \
-                    and params.depth_test == DepthTest.LESS_EQUAL \
-                    and (jax.default_backend() == "tpu"
-                         or params.pallas_interpret):
-                from softwarerenderer_tpu.ops.pallas_tile import (
-                    render_tile_pallas_kbuffer,
-                )
-                return render_tile_pallas_kbuffer(
+                if balanced_mode == "rows":
+                    my_rows, row_map_px, _ = _rows_assignment()
+                    out_c, out_d = render_kbuffer_peel(
+                        tris, fragment_shader, u, shard_params, fb_color,
+                        fb_depth, per_tri_extra=per_tri_in,
+                        tile_row_map=my_rows, full_height=H,
+                        interpret=route == "interpret")
+                    return out_c, out_d, row_map_px
+                return render_kbuffer_peel(
                     tris, fragment_shader, u, shard_params, fb_color,
                     fb_depth, per_tri_extra=per_tri_in,
                     row_offset=row_offset_k,
-                    interpret=params.pallas_interpret)
+                    interpret=route == "interpret")
             from softwarerenderer_tpu.ops.kbuffer import (
                 render_binned_kbuffer,
             )
@@ -451,21 +436,13 @@ def render_frame_sharded(scene: Dict, uniforms: Dict, params: RenderParams,
                 fb_depth, per_tri_extra=per_tri_in,
                 row_offset=row_offset_k)
 
-        # Local visibility over this shard's triangles and rows.  On the
-        # contiguous-band TPU path the Pallas tile kernel produces BOTH
-        # the local winner maps and the interpolated G-buffer in one
-        # kernel launch (the single-chip flagship architecture, now per
-        # shard); every other mode folds visibility with the XLA binned
-        # reducer and resolves the winner payload with the fused one-hot
-        # path (shade_binned_fused) — never shade_deferred's per-pixel
-        # row-gathers.
-        use_pallas_kernel = (
-            params.use_pallas and params.binned
-            and params.depth_test == DepthTest.LESS_EQUAL
-            and (balanced_mode is None
-                 or (balanced_mode == "rows" and params.tile_h <= 32))
-            and (jax.default_backend() == "tpu"
-                 or params.pallas_interpret))
+        # Local visibility over this shard's triangles and rows: the tile
+        # kernel where the route allows (contiguous bands and balanced
+        # rows), else the XLA binned reducer.  The kernel route shades
+        # with per-pixel gathers (raster.shade_deferred) like the
+        # single-device kernel frame; the XLA route resolves the winner
+        # payload with the fused one-hot path (shade_binned_fused).
+        use_kernel = route != "xla" and balanced_mode in (None, "rows")
         if params.binned:
             from softwarerenderer_tpu.ops.binning import (
                 make_binned_visibility,
@@ -477,7 +454,7 @@ def render_frame_sharded(scene: Dict, uniforms: Dict, params: RenderParams,
             vis = raster.visibility_brute_force
         col_offset_arr = 0
         if balanced_mode == "tiles":
-            # Per-TILE occupancy via one MXU matmul over the bbox overlap
+            # Per-TILE occupancy via one matmul over the bbox overlap
             # masks: occ[y, x] = Σ_t row_t(y)·col_t(x); psum over "tri"
             # keeps the ranking identical on every shard.
             bbox = tris["bbox"]
@@ -494,6 +471,7 @@ def render_frame_sharded(scene: Dict, uniforms: Dict, params: RenderParams,
                     & (tx1[:, None] >= cols[None, :])).astype(F32)
             occ = jax.lax.psum(
                 jax.lax.dot_general(rowm, colm, (((0,), (0,)), ((), ())),
+                                    precision=jax.lax.Precision.HIGHEST,
                                     preferred_element_type=jnp.float32),
                 "tri").reshape(-1)                     # (ntiles_full,)
             # Descending-occupancy greedy LPT under the equal-tiles
@@ -531,53 +509,25 @@ def render_frame_sharded(scene: Dict, uniforms: Dict, params: RenderParams,
                                  init_depth=fb_depth, tile_map=my_tiles)
         elif balanced_mode == "rows":
             my_rows, row_map_px, row_offset_arr = _rows_assignment()
-            if use_pallas_kernel:
-                # The occupancy-balanced shard runs the SAME single-pass
-                # Pallas architecture as contiguous bands: full-frame
-                # binning, the owned tiles' segments gathered, and the
-                # kernel's per-tile-row scalar-prefetch offset map
-                # (VERDICT r3 weak #3 closed — hot-band scenes no longer
-                # drop to the fused one-hot resolve).
-                from softwarerenderer_tpu.ops.pallas_tile import (
-                    _gb_keep,
-                    _prepare_ctx,
-                    _run_pass,
-                )
-                pl_ctx = _prepare_ctx(tris, shard_params, fb_depth,
-                                      per_tri_in, 0,
-                                      gb_keep=_gb_keep(fragment_shader),
-                                      tile_row_map=my_rows, full_height=H)
-                pl_frag, bd_p, bi_p = _run_pass(
-                    pl_ctx, interpret=params.pallas_interpret)
-                depth_l = bd_p[:shard_h, :W]
-                tri_l = bi_p[:shard_h, :W]
+            if use_kernel:
+                depth_l, tri_l = fold_visibility(
+                    tris, shard_params, fb_depth, tile_row_map=my_rows,
+                    full_height=H, interpret=route == "interpret")
             else:
                 depth_l, tri_l = vis(tris, shard_params, params.chunk,
                                      init_depth=fb_depth,
                                      tile_row_map=my_rows, full_height=H)
-        elif use_pallas_kernel:
-            from softwarerenderer_tpu.ops.pallas_tile import (
-                _gb_keep,
-                _prepare_ctx,
-                _run_pass,
-            )
-            row_map_px = row_offset + jnp.arange(shard_h, dtype=jnp.int32)
-            row_offset_arr = row_offset
-            # The shard's traced band offset rides the kernel's scalar
-            # prefetch (SMEM), so per-shard pixel rows are GLOBAL and the
-            # edge/interp arithmetic is bit-identical to single-chip.
-            pl_ctx = _prepare_ctx(tris, shard_params, fb_depth,
-                                  per_tri_in, row_offset,
-                                  gb_keep=_gb_keep(fragment_shader))
-            pl_frag, bd_p, bi_p = _run_pass(
-                pl_ctx, interpret=params.pallas_interpret)
-            depth_l = bd_p[:shard_h, :W]
-            tri_l = bi_p[:shard_h, :W]
         else:
             row_map_px = row_offset + jnp.arange(shard_h, dtype=jnp.int32)
             row_offset_arr = row_offset
-            depth_l, tri_l = vis(tris, shard_params, params.chunk,
-                                 init_depth=fb_depth, row_offset=row_offset)
+            if use_kernel:
+                depth_l, tri_l = fold_visibility(
+                    tris, shard_params, fb_depth, row_offset,
+                    interpret=route == "interpret")
+            else:
+                depth_l, tri_l = vis(tris, shard_params, params.chunk,
+                                     init_depth=fb_depth,
+                                     row_offset=row_offset)
 
         covered_l = tri_l != NO_TRI
         if n_tri == 1:
@@ -599,17 +549,12 @@ def render_frame_sharded(scene: Dict, uniforms: Dict, params: RenderParams,
             mine = covered & (istar >= tri_offset) \
                 & (istar < tri_offset + 2 * t_local)
             local_best = jnp.where(mine, istar - tri_offset, NO_TRI)
-        if use_pallas_kernel:
-            # The kernel already interpolated this shard's winner
-            # G-buffer; shade it with one full-frame XLA pass and
-            # composite only the pixels the global winner assigns here.
-            color = fragment_shader(pl_frag, u, jnp)
-            shaded = mine & (color[..., 3] > 0)
-            color_s = jnp.where(shaded[..., None],
-                                _blend(color, fb_color,
-                                       params.blend_mode), fb_color)
-            depth_s = jnp.where(shaded, dstar, fb_depth)
-        elif params.binned:
+        if use_kernel or not params.binned:
+            color_s, depth_s = raster.shade_deferred(
+                tris, dstar, local_best, fragment_shader, u, shard_params,
+                fb_color, fb_depth, per_tri_extra=per_tri_in,
+                row_offset=row_offset_arr, col_offset=col_offset_arr)
+        else:
             # Fused one-hot resolve of the (all-reduced) winner — the
             # single-chip fast resolve, never per-pixel row-gathers.
             from softwarerenderer_tpu.ops.binning import shade_binned_fused
@@ -623,11 +568,6 @@ def render_frame_sharded(scene: Dict, uniforms: Dict, params: RenderParams,
             color_s, depth_s = shade_binned_fused(
                 tris, dstar, local_best, fragment_shader, u, sp,
                 fb_color, fb_depth, per_tri_extra=per_tri_in, **kw)
-        else:
-            color_s, depth_s = raster.shade_deferred(
-                tris, dstar, local_best, fragment_shader, u, shard_params,
-                fb_color, fb_depth, per_tri_extra=per_tri_in,
-                row_offset=row_offset_arr, col_offset=col_offset_arr)
         if n_tri == 1:
             out_c, out_d = color_s, depth_s
         else:

@@ -2,7 +2,7 @@
 
 This is the trusted oracle (SURVEY.md §7 step 1): a sequential, deterministic
 implementation of the reference rasterizer's semantics (Rasterizer.cs,
-MainWindow.cs framebuffer accessors) against which the TPU path is
+MainWindow.cs framebuffer accessors) against which the device path is
 pixel-compared.  Per-triangle work is vectorized over the bounding-box pixel
 grid for speed, but triangles are processed strictly in submission order so
 results are deterministic (the reference itself races across tiles/meshes —
@@ -39,7 +39,8 @@ Faithfulness ledger (file:line cites into /root/reference):
   * wireframe mode: distance-to-segment <= 0.5 px lines with depth =
     1/(lerp of vertex depths) (Rasterizer.cs:232-340).
 
-Documented divergences from the reference (also absent from the TPU path):
+Documented divergences from the reference (also absent from the device
+path):
   * the reference walks edge functions incrementally across rows
     (Rasterizer.cs:527-534), accumulating float error; we evaluate directly
     at each pixel.  Divergence is sub-ulp-per-step and does not change
@@ -67,11 +68,15 @@ DEPTH_CLEAR = np.finfo(np.float32).min  # float.MinValue
 
 
 class Framebuffer:
-    """Color (H,W,4) + depth (H,W) float32 buffers (MainWindow.cs:30-31)."""
+    """Color (H,W,4) + depth (H,W) float32 buffers (MainWindow.cs:30-31).
 
-    def __init__(self, width: int, height: int):
+    rows=(y0, y1) is a scissor: filled triangles touch only rows
+    y0 <= y < y1, so a frame can be rendered as independent row bands."""
+
+    def __init__(self, width: int, height: int, rows=None):
         self.width = width
         self.height = height
+        self.rows = (0, height) if rows is None else tuple(rows)
         self.color = np.zeros((height, width, 4), dtype=F32)
         self.depth = np.full((height, width), DEPTH_CLEAR, dtype=F32)
 
@@ -260,8 +265,9 @@ def _rasterize_triangle(fb, screen, depths, outputs, fragment_shader, uniforms,
     h, w = fb.height, fb.width
     min_x = max(int(np.floor(min(s0[0], s1[0], s2[0]))), 0)
     max_x = min(int(np.ceil(max(s0[0], s1[0], s2[0]))), w - 1)
-    min_y = max(int(np.floor(min(s0[1], s1[1], s2[1]))), 0)
-    max_y = min(int(np.ceil(max(s0[1], s1[1], s2[1]))), h - 1)
+    min_y = max(int(np.floor(min(s0[1], s1[1], s2[1]))), fb.rows[0])
+    max_y = min(int(np.ceil(max(s0[1], s1[1], s2[1]))), h - 1,
+                fb.rows[1] - 1)
     if min_x > max_x or min_y > max_y:
         return
 

@@ -4,7 +4,7 @@ The reference makes shaders first-class via C# delegates supplied per mesh
 (Shaders.cs:97-98, consumed at Rasterizer.cs:187,509); the game's shaders
 live at Renderer.cs:830-860.  Here a shader is a plain Python function over
 *arrays* (leading dims broadcast), so the same function runs scalar-faithful
-under NumPy in the golden reference and batched/fused under jit on TPU:
+under NumPy in the golden reference and batched/fused under jit on device:
 
   vertex_shader(vin: dict, uniforms: dict, xp) -> dict
       vin:  {"position": (...,3), "uv": (...,2), "normal": (...,3),

@@ -7,7 +7,7 @@ pieces: each agent is the reference's kinematic capsule controller
 a tiny waypoint-seeking brain, and the whole crowd advances with one
 `jax.vmap`ped call — steering, the 9-ray ground probes, and every
 capsule slide shell for ALL agents fuse into a single device program
-(SURVEY.md §2.2 P5 taken to N characters).  This is the TPU-first
+(SURVEY.md §2.2 P5 taken to N characters).  This is the batched
 answer to "add bots": the cost of one more bot is one more row in a
 batch, not another thread.
 

@@ -1,6 +1,6 @@
 """Batched raycast physics: Möller–Trumbore over all triangles at once.
 
-TPU-native re-design of Physics.cs (/root/reference/Physics.cs): the
+Batched re-design of Physics.cs (/root/reference/Physics.cs): the
 reference transforms the whole mesh per call then runs a Parallel.For over
 triangles with thread-local nearest-hit reduction (SURVEY.md §2.2 P4);
 here R rays × T triangles evaluate as one fused (R, T) tensor op followed

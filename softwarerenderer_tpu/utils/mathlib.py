@@ -209,6 +209,24 @@ def invert(m, xp=np):
 # Vector helpers (last-axis semantics; broadcast-friendly)
 # ---------------------------------------------------------------------------
 
+def matmul(a, b, xp=np):
+    """a @ b in full float32.  On a GPU a float32 product may otherwise
+    run in TF32 (about three decimal digits); the device path pins
+    HIGHEST so it matches the host reference."""
+    if xp is np:
+        return a @ b
+    import jax
+    return xp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
+def einsum(spec, *operands, xp=np):
+    """xp.einsum in full float32 (see matmul)."""
+    if xp is np:
+        return np.einsum(spec, *operands)
+    import jax
+    return xp.einsum(spec, *operands, precision=jax.lax.Precision.HIGHEST)
+
+
 def dot(a, b, xp=np):
     return xp.sum(_f32(a, xp) * _f32(b, xp), axis=-1)
 
@@ -249,7 +267,8 @@ def transform(v, m, xp=np):
     Written as explicit left-to-right mul/adds (x·M[0] + y·M[1] + z·M[2] +
     w·M[3]) rather than matmul so the float32 summation order is identical
     to .NET System.Numerics AND identical between the numpy golden reference
-    and the XLA device path (TPU matmuls would otherwise reassociate).
+    and the XLA device path (a matmul would reassociate, and may run in
+    reduced precision on a GPU).
     Supports batched matrices (leading dims broadcast against v's).
     """
     v = _f32(v, xp)

@@ -302,8 +302,8 @@ def test_defer_attrs_bit_exact_incl_clipping():
 
 
 def test_global_count_matches_bins():
-    """binning.global_count (the params.global_cap runtime guard)
-    recomputes exactly the global classification bin_triangles makes."""
+    """binning.global_count (the live_globals counter) recomputes
+    exactly the global classification bin_triangles makes."""
     soup = primitives.random_triangle_soup(60, seed=8)
     plane = primitives.plane(40.0, y=-1.5)
     n = soup["position"].shape[0]

@@ -634,8 +634,7 @@ def test_gamepad_inputs_drive_game():
 
 def test_raytraced_mode_renders():
     """--raytrace renders the playable scene through the ray tracer
-    (XLA pair path on this CPU mesh; the same code route dispatches the
-    Pallas sweep kernel on TPU): frames present, are finite, and cover
+    (the XLA pair sweep): frames present, are finite, and cover
     geometry; gameplay stepping works unchanged."""
     g = make_game(offline=True, raytrace=6)
     try:

@@ -108,11 +108,11 @@ def run_all(attrs, indices, params, frag, pallas=False):
         c0 = jnp.broadcast_to(jnp.asarray(CLEAR), (H, W, 4))
         d0 = jnp.full((H, W), raster.DEPTH_CLEAR, jnp.float32)
         if pallas:
-            from softwarerenderer_tpu.ops.pallas_tile import (
-                render_tile_pallas_kbuffer,
+            from softwarerenderer_tpu.ops.tile_fold import (
+                render_kbuffer_peel,
             )
-            return render_tile_pallas_kbuffer(tris, frag, u, params, c0, d0,
-                                              interpret=True)
+            return render_kbuffer_peel(tris, frag, u, params, c0, d0,
+                                       interpret=True)
         return render_binned_kbuffer(tris, frag, u, params, c0, d0)
 
     def fwd(vin, idx, u):

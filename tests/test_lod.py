@@ -325,34 +325,26 @@ def test_pair_cap_engine_exact_with_stats():
     assert "pair_cap_overflow" not in stats3
 
 
-def test_lazy_compaction_pallas_interpret_exact():
-    """lazy_compaction (attrs un-gathered; the permutation composes into
-    the Pallas stream gathers) is bit-identical to the eager gather
-    through the kernel code path, alone and with pair_cap + global_cap
-    stacked on top."""
+def test_compaction_caps_pallas_interpret_exact():
+    """active_cap + pair_cap through the tile-kernel code path
+    (interpret mode) on a scene whose multi-tile triangles go GLOBAL:
+    the overflow counters read 0 and the frame is bit-identical to the
+    uncapped kernel frame."""
     scene = _sphere_scene(True)
     cap = lod.suggested_active_cap(scene)
     u = default_frame_uniforms(W, H)
     u["camera_position"] = np.float32([0.0, 0.0, 0.5])
-    # span_cap=1 forces multi-tile triangles GLOBAL so the global_cap-
-    # truncated stream actually carries rows at this tiny frame size
-    # (default span_cap 8 == the whole 2x4 tile grid: nothing is ever
-    # global there).
+    # span_cap=1 forces multi-tile triangles GLOBAL so the kernel's
+    # global walk carries rows at this tiny frame size (default span_cap
+    # 8 == the whole 2x4 tile grid: nothing is ever global there).
     base = RenderParams(width=W, height=H, pallas_interpret=True,
-                        active_cap=cap, span_cap=1)
-    c0, d0 = jax.jit(lambda s, u: render_frame(
-        s, u, base.replace(lazy_compaction=False)))(scene, u)
-    c1, d1 = jax.jit(lambda s, u: render_frame(s, u, base))(scene, u)
-    np.testing.assert_array_equal(np.asarray(c0), np.asarray(c1))
-    np.testing.assert_array_equal(np.asarray(d0), np.asarray(d1))
-    # pair_cap + global_cap composed, overflow counters prove exactness
-    p2 = base.replace(pair_cap=-(-cap * 2 // 128) * 128,
-                      global_cap=cap - 1 if cap > 257 else 257,
+                        span_cap=1)
+    c0, d0 = jax.jit(lambda s, u: render_frame(s, u, base))(scene, u)
+    p2 = base.replace(active_cap=cap, pair_cap=-(-cap * 2 // 128) * 128,
                       active_cap_stats=True)
     c2, d2, stats = jax.jit(lambda s, u: render_frame(s, u, p2))(scene, u)
     assert int(stats["active_cap_overflow"]) == 0
     assert int(stats["pair_cap_overflow"]) == 0
-    assert int(stats["global_cap_overflow"]) == 0
     assert int(stats["live_globals"]) > 0
     np.testing.assert_array_equal(np.asarray(c0), np.asarray(c2))
     np.testing.assert_array_equal(np.asarray(d0), np.asarray(d2))

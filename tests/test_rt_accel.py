@@ -212,94 +212,6 @@ def test_full_frame_culled_matches_brute():
         assert (diff < 1e-3).mean() > 0.995, (kw, diff.max())
 
 
-def test_pallas_sweep_matches_brute():
-    """The Pallas bundle-sweep kernel (ops/rt_pallas, interpret mode):
-    winner identity exactly equals the brute raycast across face masks,
-    tri_mask, and the capb-overflow fallback."""
-    from softwarerenderer_tpu.ops import rt_pallas
-
-    world = _soup_world(n=1403)
-    accel = rt_pallas.build_rt_accel_pl(world)
-    rng = np.random.default_rng(2)
-    B, R = 5, 128
-    o = np.repeat(rng.uniform(-0.5, 0.5, (B, 1, 3)).astype(np.float32)
-                  + [-12, 0, 0], R, axis=1)
-    o += rng.uniform(-0.3, 0.3, (B, R, 3)).astype(np.float32)
-    d = np.asarray([1.0, 0, 0], np.float32) \
-        + rng.uniform(-0.25, 0.25, (B, R, 3)).astype(np.float32)
-    o, d = jnp.asarray(o), jnp.asarray(d)
-
-    tmask = np.zeros((1403,), bool)
-    tmask[:900] = True
-    cases = [dict(capb=16), dict(capb=1),          # overflow -> brute
-             dict(capb=16, face_mask=rc.FACE_MASK_IGNORE_BACKFACES),
-             dict(capb=16, tri_mask=jnp.asarray(tmask))]
-    for kw in cases:
-        res = jax.jit(lambda o, d, kw=kw: rt_pallas.raycast_bundles_nearest_pl(
-            o, d, world, accel, interpret=True, **kw))(o, d)
-        anyres = jax.jit(lambda o, d, kw=kw: rt_pallas.raycast_bundles_any_pl(
-            o, d, world, accel, interpret=True, **kw))(o, d)
-        for b in range(B):
-            brute = rc.raycast_batch(
-                o[b], d[b], world,
-                face_mask=kw.get("face_mask", rc.FACE_MASK_NONE),
-                tri_mask=kw.get("tri_mask"))
-            np.testing.assert_array_equal(np.asarray(res["hit"][b]),
-                                          np.asarray(brute["hit"]), str(kw))
-            np.testing.assert_array_equal(np.asarray(res["tri"][b]),
-                                          np.asarray(brute["tri"]), str(kw))
-            np.testing.assert_array_equal(np.asarray(anyres["hit"][b]),
-                                          np.asarray(brute["hit"]), str(kw))
-            fin = np.asarray(brute["distance"]) < 1e30
-            np.testing.assert_allclose(
-                np.asarray(res["distance"][b])[fin],
-                np.asarray(brute["distance"])[fin], rtol=3e-6, atol=1e-5)
-
-
-def test_full_frame_kernel_matches_brute():
-    """render_frame_raytraced through the Pallas sweep kernel
-    (pallas_interpret on the CPU mesh) reproduces the brute frame:
-    identical coverage, depth to fp tolerance — 16×16 tiles give
-    R = 256 rays/bundle, the kernel's lane-aligned path."""
-    from softwarerenderer_tpu import RenderParams
-    from softwarerenderer_tpu.engine.renderer import default_frame_uniforms
-    from softwarerenderer_tpu.ops import texture as tex_ops
-    from softwarerenderer_tpu.ops.raster import DEPTH_CLEAR
-    from softwarerenderer_tpu.ops.raytrace import render_frame_raytraced
-
-    checker = np.asarray(tex_ops.checkerboard(16, 4)["data"])
-    insts = [
-        scene_mod.MeshInstance(primitives.cube(1.0),
-                               ml.translation([0.0, 0.0, -3.0]),
-                               texture=checker),
-        scene_mod.MeshInstance(primitives.plane(20.0),
-                               ml.translation([0.0, -1.0, 0.0])),
-    ]
-    sc = scene_mod.build_scene_buffers(insts)
-    W, H = 64, 48
-    u = default_frame_uniforms(W, H)
-    u["camera_position"] = np.asarray([0.0, 0.5, 1.0], np.float32)
-    params_b = RenderParams(width=W, height=H)
-    params_k = RenderParams(width=W, height=H, pallas_interpret=True)
-
-    bc, bdep = jax.jit(lambda s, uu: render_frame_raytraced(
-        s, uu, params_b, chunk=256, shadows=True))(sc, u)
-    kc, kdep = jax.jit(lambda s, uu: render_frame_raytraced(
-        s, uu, params_k, chunk=256, shadows=True, cluster_cap=8))(sc, u)
-    bdep, kdep = np.asarray(bdep), np.asarray(kdep)
-    # Coverage: the kernel evaluates the same Möller–Trumbore formulas
-    # in a different program layout, so XLA/Mosaic FMA contraction can
-    # flip the inside test at a handful of triangle-EDGE pixels (the
-    # same cross-compilation caveat as the module docstring's float
-    # note); everything off-edge must agree.
-    cov_flip = ((bdep == DEPTH_CLEAR) != (kdep == DEPTH_CLEAR))
-    assert cov_flip.mean() < 2e-3, cov_flip.mean()
-    cov = (bdep != DEPTH_CLEAR) & ~cov_flip
-    np.testing.assert_allclose(kdep[cov], bdep[cov], rtol=0, atol=1e-5)
-    diff = np.abs(np.asarray(kc) - np.asarray(bc)).max(axis=-1)
-    assert (diff < 1e-3).mean() > 0.99, diff.max()
-
-
 def test_cap_ladder_exact():
     """A ladder of rungs dispatches per-bundle and stays exact, including
     bundles that overflow every rung (brute branch of the switch)."""
